@@ -2,31 +2,30 @@
 """Production-scale (100k+ exemplar) end-to-end conversion benchmark.
 
 BASELINE config 5 is "100k+-frame sharded-dictionary conversion"; its
-single-chip half is measurable here (VERDICT r3 item 3): run the WHOLE
-convert path — dictionary build, VTLP expansion to ≥100k exemplar pairs,
-fixed-dictionary NMF solve at production K, conversion, Griffin-Lim(300) —
-on the real chip, and report audio-s/s + the fenced stage split next to the
-7.7k-dictionary number (bench.py).
+single-GPU half is measured here: run the WHOLE convert path — dictionary
+build, VTLP expansion to ~100k exemplar pairs, fixed-dictionary NMF solve
+at production K, conversion, Griffin-Lim(300) — on the GPU, and report
+audio-s/s + the fenced stage split next to the base-dictionary number
+(bench.py). The data is ``EVC_BENCH_DATA`` when set, else the seeded corpus
+of ``io/synth_corpus.py``.
 
-The ≥100k dictionary comes from ``data.dict_augment_warps`` (14 VTLP warps
-→ 15 × 7,680 = 115,200 exemplars from the same bundled audio) — the same
-mechanism a production corpus would use for coverage, and the exact shape
-family the K=100,352 roofline measured (28.7 TFLOP/s sustained).
+The large dictionary comes from ``data.dict_augment_warps`` (14 VTLP warps
+→ 15 × the base dictionary's exemplars from the same audio) — the same
+mechanism a production corpus would use for coverage.
 
-Usage: python bench_100k.py [--runs 3] [--out artifacts/convert_100k_tpu.json]
+Usage: python bench_100k.py [--runs 3] [--out FILE]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
+
 import shutil
 import sys
 import tempfile
 import time
 
-DATA = os.environ.get("EVC_BENCH_DATA", "/root/reference/data")
 WARPS = ",".join(
     f"{w:g}" for w in
     [0.86, 0.88, 0.90, 0.92, 0.94, 0.96, 0.98,
@@ -44,30 +43,29 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--warps", default=WARPS,
                     help="comma list of VTLP warps (smaller for smoke tests)")
-    ap.add_argument("--platform", default=None)
     args = ap.parse_args()
-
-    if args.platform:
-        os.environ["JAX_PLATFORMS"] = args.platform
-        import jax as _jax
-
-        _jax.config.update("jax_platforms", args.platform)
-
-    import jax
 
     from exemplars_vc_tpu.config import load_config
     from exemplars_vc_tpu.io import ArtifactStore, read_wav
     from exemplars_vc_tpu.io.store import list_speaker_wavs
     from exemplars_vc_tpu.pipelines.convert import (
+        _aligned_dicts,
         convert_utterance,
         mcd_between_signals,
     )
+    from exemplars_vc_tpu.io.synth_corpus import bench_data
     from exemplars_vc_tpu.pipelines.evaluate import heldout_pair
-    from exemplars_vc_tpu.runtime import enable_persistent_compilation_cache
+    from exemplars_vc_tpu.runtime import (
+        device_record,
+        enable_persistent_compilation_cache,
+        require_gpu,
+    )
 
+    require_gpu()
     enable_persistent_compilation_cache()
-    platform = jax.devices()[0].platform
-    log(f"platform: {platform}")
+    device = device_record()
+    log(f"device: {device}")
+    DATA = bench_data()
 
     cfg = load_config(overrides=[
         "data.tar=TF1", "misc.nb_file=8",
@@ -103,19 +101,18 @@ def main():
 
     # one fenced run for the honest stage split + K + quality
     tmp = tempfile.mkdtemp(prefix="evc_100k_sync_")
-    res_sync = convert_utterance(cfg, ArtifactStore(tmp), DATA, wav_path,
+    store = ArtifactStore(tmp)
+    res_sync = convert_utterance(cfg, store, DATA, wav_path,
                                  nb_file=8, sync_stages=True)
+    # the memoized dictionaries of this run: A's row count is K
+    k_exemplars = int(_aligned_dicts(cfg, store, DATA, 8)[0]["stft"][0].shape[0])
     shutil.rmtree(tmp, ignore_errors=True)
-    import numpy as np
 
     tar_sig, _ = read_wav(tar_path)
     heldout_mcd = float(mcd_between_signals(res_sync.audio, tar_sig, cfg))
-    n_w = len([w for w in args.warps.split(",") if w.strip()])
-    k_exemplars = (1 + n_w) * 7680   # 8 bundled pairs pad to 7,680 per copy
 
     # batch-vs-serial serving at production K: the stacked convert_batch
-    # solve amortizes the NMF across utterances, a win that grows with K
-    # (at the 7.7k dictionary it LOSES to serial — BENCHMARKS §serving);
+    # solve amortizes the NMF across utterances, a win that grows with K;
     # this measures whether 100k+ K is the regime where batch pays.
     from exemplars_vc_tpu.pipelines.serve import Converter
 
@@ -144,16 +141,11 @@ def main():
             f"serial_per_utt_ms{tag}": round(1000 * serial_s / len(batch_utts), 1),
             f"batch_speedup{tag}": round(serial_s / batch_s, 2),
         })
-    # the amortization ceiling is the compute roofline, not the dictionary
-    # stream: see artifacts/serving_solve_probe.json (solve-only, f32:
-    # 36.8 TFLOP/s single-utt vs 40.9 stacked → max batch gain ~1.1×;
-    # A-matrix HBM traffic is ~10% of the measured iteration time at
-    # F=704) and BENCHMARKS §serving
     log(f"serving at K={k_exemplars}: {serving}")
 
     hot = sorted(hots)[len(hots) // 2]
     payload = {
-        "metric": f"audio-seconds/s per chip, {k_exemplars}-exemplar "
+        "metric": f"audio-seconds/s per GPU, {k_exemplars}-exemplar "
                   "dictionary (dict build + VTLP expansion + NMF convert + GL300)",
         "value": round(total_audio / hot, 3),
         "unit": "audio_s/s",
@@ -168,7 +160,7 @@ def main():
             "heldout_mcd_db": round(heldout_mcd, 3),
             "nmf_iters": int(res_sync.n_iter),
             "serving_batch_vs_serial": serving,
-            "platform": platform,
+            "device": device,
         },
     }
     s = json.dumps(payload)

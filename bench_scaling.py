@@ -6,9 +6,10 @@ a synthetic 100k+-frame exemplar dictionary:
 
 - single-device throughput at production scale (K=100k, D=201, F=704 — the
   (F,K)·(K,D) MU matmuls at ~2·2·F·K·D ≈ 57 GFLOP/iter),
-- multi-device runs over every mesh size available (real chips on a pod
-  slice; virtual CPU devices validate the collectives but share one socket,
-  so their wall-clock is NOT a scaling signal and is labeled as such).
+- multi-device runs over every mesh size the GPUs of this host allow, with
+  the activations checked equal across shard counts.
+
+The run needs GPUs and records the devices it ran on.
 
 Usage:
     python bench_scaling.py [--devices N] [--k 100352] [--iters 50]
@@ -45,11 +46,12 @@ def main():
     import jax.numpy as jnp
 
     from exemplars_vc_tpu.parallel import make_mesh, sharded_nmf_activations
+    from exemplars_vc_tpu.runtime import device_record, require_gpu
 
+    require_gpu()
+    device = device_record()
     n_dev = args.devices or len(jax.devices())
-    platform = jax.devices()[0].platform
-    virtual = platform == "cpu"
-    log(f"platform={platform} devices={n_dev} K={args.k} F={args.f} D={args.d}")
+    log(f"device={device} devices={n_dev} K={args.k} F={args.f} D={args.d}")
 
     rng = np.random.default_rng(0)
     X = jnp.asarray(np.abs(rng.standard_normal((args.f, args.d))), jnp.float32)
@@ -89,33 +91,10 @@ def main():
         diff = float(np.abs(H_by_shards[r["dict_shards"]] - H1).max())
         r["h_max_rel_diff_vs_1shard"] = diff / h_scale
 
-    # modeled ICI efficiency per shard count (what the virtual mesh cannot
-    # measure): per MU iteration each chip does 4·F·(K/s)·D flops and one
-    # (F, D) fp32 psum ≈ 2·(s−1)/s · F·D·4 bytes over ICI (bidirectional
-    # ring all-reduce). Roofline constants: v4-class chip ≈ 137 TFLOP/s
-    # f32-on-MXU effective 1/2 of bf16 275, ICI ≈ 100 GB/s per link usable.
-    CHIP_FLOPS = 137e12 / 2
-    ICI_BYTES = 100e9
-    model = []
-    for s in shard_counts:
-        t_comp = 4.0 * args.f * (args.k / s) * args.d / CHIP_FLOPS
-        t_comm = 0.0 if s == 1 else (2.0 * (s - 1) / s) * (
-            args.f * args.d * 4.0) / ICI_BYTES
-        model.append({
-            "dict_shards": s,
-            "modeled_efficiency": round(t_comp / (t_comp + t_comm), 4),
-        })
-
     payload = {
         "metric": "sharded-dictionary NMF (K=%d) MU iterations" % args.k,
-        "platform": platform,
-        "virtual_devices": virtual,
-        "note": ("virtual CPU devices share one socket: timings validate the "
-                 "sharded collectives, not scaling — see modeled_ici for the "
-                 "analytic ICI roofline") if virtual else
-                "real-chip scaling over ICI",
+        "device": device,
         "results": results,
-        "modeled_ici": model,
     }
     out = json.dumps(payload)
     print(out, flush=True)

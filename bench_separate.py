@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Separation-stack benchmark on the real device (VERDICT r3 item 2).
+"""Separation-stack benchmark on the device.
 
 Everything under ``separate/`` was validated on the CPU backend only; this
 script executes the three headline separation paths on whatever backend JAX
-resolves (the real TPU under the driver; ``--platform cpu`` for the parity
-reference) with a FIXED synthetic stereo mixture:
+resolves (the GPU; ``--platform cpu`` for the parity reference) with a
+FIXED synthetic stereo mixture:
 
 - ``multichannel``: full-rank spatial multichannel NMF EM
   (``separate_signal`` — FASST-class, reference scope
@@ -16,12 +16,12 @@ reference) with a FIXED synthetic stereo mixture:
 
 Per path: cold wall (first call, includes compile), warm wall (second call,
 same shapes), plus summary stats of the outputs. ``--save out.npz`` stores
-the separated signals so a TPU run can be compared against a CPU run with
+the separated signals so a GPU run can be compared against a CPU run with
 ``--compare a.npz b.npz`` (max relative L2 difference per output).
 
 Usage:
   python bench_separate.py [--platform cpu] [--save artifacts/sep.npz]
-  python bench_separate.py --compare sep_tpu.npz sep_cpu.npz
+  python bench_separate.py --compare sep_gpu.npz sep_cpu.npz
 """
 
 from __future__ import annotations
@@ -142,8 +142,8 @@ def run_all(save: str | None):
     results["stereo_simm"]["f0_median_hz"] = (
         round(float(np.median(f0[f0 > 0])), 1) if (f0 > 0).any() else 0.0)
     # lead share of separated output energy — the platform-parity headline
-    # (VERDICT r4 item 1: was 1.8% TPU vs 68% CPU before the host-f64
-    # spectrogram fix; must agree within ±5% across platforms)
+    # (it diverged across platforms before the host-f64 spectrogram fix;
+    # must agree within ±5% across platforms)
     e_lead = float((lead.astype(np.float64) ** 2).sum())
     e_acc = float((accomp.astype(np.float64) ** 2).sum())
     results["stereo_simm"]["lead_energy_share"] = round(

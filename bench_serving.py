@@ -16,7 +16,9 @@ prepared device-resident dictionaries —
 
 The reference has no serving story at all (its conversion reloads pickles
 per run, ``04_align_n_nmf.py:251-302``); these numbers back the framework's
-production-serving claim. Prints ONE JSON line; ``--out`` also writes it.
+production-serving claim. The data is ``EVC_BENCH_DATA`` when set, else
+the seeded corpus of ``io/synth_corpus.py``; the run needs a GPU. Prints
+ONE JSON line; ``--out`` also writes it.
 
 Usage: python bench_serving.py [--repeats 3] [--chunk-frames 16] [--out f]
 """
@@ -32,8 +34,6 @@ import tempfile
 import time
 
 import numpy as np
-
-DATA = os.environ.get("EVC_DATA", "/root/reference/data")
 
 
 def log(m):
@@ -52,12 +52,11 @@ def main():
     ap.add_argument("--stream-pushes", type=int, default=30)
     ap.add_argument("--synth-iters", type=int, default=60,
                     help="Griffin-Lim budget for the latency paths (300 is "
-                    "the batch default; 60 is the quality/latency knee "
-                    "measured in BENCHMARKS.md)")
+                    "the batch default; 60 is the measured quality/latency "
+                    "knee)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    import jax
     import jax.numpy as jnp
 
     from exemplars_vc_tpu.config import load_config
@@ -65,12 +64,19 @@ def main():
     from exemplars_vc_tpu.io.store import list_speaker_wavs
     from exemplars_vc_tpu.pipelines.evaluate import heldout_pair
     from exemplars_vc_tpu.pipelines.serve import Converter
+    from exemplars_vc_tpu.io.synth_corpus import bench_data
     from exemplars_vc_tpu.pipelines.stream import StreamingConverter
-    from exemplars_vc_tpu.runtime import enable_persistent_compilation_cache
+    from exemplars_vc_tpu.runtime import (
+        device_record,
+        enable_persistent_compilation_cache,
+        require_gpu,
+    )
 
+    require_gpu()
     enable_persistent_compilation_cache()
-    platform = jax.devices()[0].platform
-    log(f"platform: {platform}")
+    device = device_record()
+    log(f"device: {device}")
+    DATA = bench_data()
 
     cfg = load_config(overrides=["data.tar=TF1", "misc.nb_file=8"])
     tmp = tempfile.mkdtemp(prefix="evc_serve_bench_")
@@ -159,7 +165,7 @@ def main():
 
     shutil.rmtree(tmp, ignore_errors=True)
     payload = json.dumps({
-        "platform": platform,
+        "device": device,
         "synth_iters": args.synth_iters,
         "prepare_s": round(prepare_s, 2),
         "serving": serving,

@@ -1,4 +1,4 @@
-"""exemplars_vc_tpu — a TPU-native exemplar-based voice-conversion framework.
+"""exemplars_vc_tpu — an accelerator-native exemplar-based voice-conversion framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 research pipeline ``entn-at/exemplars_vc`` (see SURVEY.md):

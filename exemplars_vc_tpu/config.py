@@ -46,7 +46,7 @@ class DataConfig:
     # the normal frame grid. >1 multiplies the exemplar count from the same
     # audio — the NMF doesn't care where dictionary rows came from, and the
     # converted output keeps the input's grid. Measured on the held-out pair
-    # in BENCHMARKS.md §held-out quality.
+    # on the real held-out pair.
     dict_hop_divisor: int = 1
     # VTLP dictionary augmentation (convert._augment_dicts): comma list of
     # frequency-warp factors; each α appends a warped copy of every
@@ -106,11 +106,11 @@ class WorldConfig:
     fft_size: int = 1024
     # "dio" | "harvest" (WORLD's algorithms, oracle-pinned) | "ncc"
     # (greedy NCC) | "tracked" (Viterbi lattice). Default chosen from the
-    # recorded known-truth comparison in BENCHMARKS.md (§f0 method
-    # selection): dio had the lowest gross-error rate (0% on glide and
-    # weak-fundamental cases where ncc had 0.6-1.2%) at equal median
-    # accuracy (~0.5 cents); harvest is more accurate still (≤0.4 cents,
-    # solves weak fundamentals) at ~10× the compute — the reference's
+    # recorded known-truth comparison of f0 methods: dio had the lowest
+    # gross-error rate (0% on glide and weak-fundamental cases where ncc
+    # had 0.6-1.2%) at equal median accuracy (~0.5 cents); harvest is more
+    # accurate still (≤0.4 cents, solves weak fundamentals) at ~10× the
+    # compute — the reference's
     # conv-dicts stage actually calls pw.harvest, so pick it for parity
     # experiments.
     f0_method: str = "dio"
@@ -120,7 +120,7 @@ class WorldConfig:
     # the standard VC Gaussian-prosody mapping. "nmf": reference parity —
     # decompose f0 over the exemplar dictionary like sp/ap
     # (04_align_n_nmf.py:218-333 runs _factorize on f0 too), a known-poor
-    # f0 converter (measured in BENCHMARKS.md §held-out quality).
+    # f0 converter (measured on the real held-out pair).
     f0_transform: str = "logmv"
     # Domain of the sp NMF decomposition on the WORLD path. "power":
     # reference parity — NMF directly on CheapTrick's power envelope
@@ -128,7 +128,7 @@ class WorldConfig:
     # sqrt(sp) and square the conversion — power spectra span twice the
     # dynamic range, so power-domain NMF over-weights spectral peaks; the
     # magnitude domain fits the envelope more evenly (measured on the
-    # held-out pair, BENCHMARKS.md §held-out quality).
+    # held-out pair, measured on the real held-out pair).
     sp_domain: str = "power"
 
 
@@ -140,18 +140,16 @@ class NmfConfig:
     beta_loss: str = "frobenius"    # "frobenius" | "kullback-leibler"
     tol: float = 1e-4
     max_iter: int = 150
-    # "auto" resolves to the XLA mu solver (bench_kernels.py with proper
-    # device-side materialization: XLA 0.157 s vs Pallas 0.245 s for 50
-    # iterations at K=100k, equal at K=7.4k); explicit: "mu" | "mu_pallas" |
-    # "cd"/"nnls" | "qr"
+    # "auto" resolves to the mu solver; explicit: "mu" | "mu_sharded" (the
+    # dictionary sharded over every device) | "cd"/"nnls" | "qr"
     solver: str = "auto"
     # FISTA budget for the 'cd'/'nnls' solver. 0 = auto: 10 × max_iter —
     # one sklearn-cd "iteration" is a full SWEEP of K coordinate updates,
     # so matching its objective needs ~10× as many FISTA steps (measured on
     # the bundled problem: sklearn cd at 200 sweeps reaches ‖X−HA‖ = 58.98;
     # FISTA 200: 65.61, 1500: 59.16, 2000: ~59.0, 4000: 58.80 — each FISTA
-    # step is two MXU matmuls, so the larger count is still far cheaper on
-    # TPU than a sequential coordinate sweep). PARITY.md C12.
+    # step is two dense matmuls, so the larger count is still far cheaper
+    # on an accelerator than a sequential coordinate sweep). PARITY.md C12.
     nnls_iters: int = 0
     griffin_lim_iters: int = 300    # reference 04_align_n_nmf.py:187
     # Griffin-Lim phase seed: "source" starts from the input utterance's own
@@ -169,13 +167,11 @@ class NmfConfig:
     # input: R = X/(H·A) copies source spectral detail, which helps when the
     # input is in the dictionary and pulls the output back toward the source
     # speaker when it is not (held-out 100162: 8.43 → 7.63 dB MCD with
-    # magnitude-domain sp; BENCHMARKS.md §held-out quality).
+    # magnitude-domain sp; measured on the real held-out pair).
     use_residual: str = "auto"
     # "float32" (default: exact sklearn-trajectory mode) | "bfloat16"
-    # (halves MU-matmul HBM traffic, f32 accumulation, <0.01 dB MCD impact —
-    # but MEASURED SLOWER on TPU v5e at production sizes: the astype
-    # round-trips around each matmul cost more than the traffic saved,
-    # 0.44 s vs 0.29 s for the solve+synthesis block). mu solver only.
+    # (halves MU-matmul HBM traffic, f32 accumulation, <0.01 dB MCD impact;
+    # its speed on the GPU is not measured yet). mu solver only.
     work_dtype: str = "float32"
     # λ‖H‖₁ sparsity on the activations (0 = off, sklearn-parity); the
     # conventional sparse-coding constraint of exemplar-based VC. mu solver.
@@ -208,7 +204,7 @@ class NmfConfig:
     # feature axis of X and A before the activation solve (the classic
     # exemplar-VC extension the reference's single-frame dictionaries lack;
     # B stays single-frame so the conversion output is unchanged in shape).
-    # 0 = reference semantics. MEASURED (BENCHMARKS.md §conversion quality,
+    # 0 = reference semantics. MEASURED (on the real corpus,
     # 2026-08-19): with beta_loss=kullback-leibler, context_frames=3 the
     # DTW-aligned MCD vs the true target drops ~2.3 dB below the reference's
     # frobenius/single-frame settings on every bundled utterance tested.
@@ -226,7 +222,7 @@ class NmfConfig:
     # the objective genuinely changes: the rescale turns λ‖H‖₁ into a
     # per-atom energy-weighted penalty λ·Σₖ sₖ‖H₍·,ₖ₎‖₁ (high-energy atoms
     # penalized harder). False = reference parity. Measured +0.07 dB
-    # held-out (BENCHMARKS §held-out quality) — ships as an opt-in with
+    # held-out (measured on the real held-out pair) — ships as an opt-in with
     # the negative finding.
     normalize_exemplars: bool = False
 
@@ -308,12 +304,11 @@ def _coerce(current: Any, raw: str) -> Any:
 
 # Named presets: override bundles applied BEFORE user overrides (so
 # `--preset quality -o nmf.h_smooth=0` still lets the user win).
-# "quality": the jointly-swept best STFT-path configuration (VERDICT r4
-# item 5) — KL β-loss + 4-warp VTLP dictionary augmentation + a 2-frame
-# temporal box filter on H. Composed levers were swept JOINTLY on 2 LOO
+# "quality": the jointly-swept best STFT-path configuration — KL β-loss +
+# 4-warp VTLP dictionary augmentation + a 2-frame temporal box filter on H. Composed levers were swept JOINTLY on 2 LOO
 # folds (tools/sweep_quality.py; prune/sharpen/densify/more-warps all
 # measured worse in composition) and validated on all 8 folds
-# (BENCHMARKS §held-out quality, artifacts/loo_preset.json).
+# (measured on the real held-out pair).
 PRESETS: dict[str, list[str]] = {
     "quality": [
         "nmf.beta_loss=kullback-leibler",

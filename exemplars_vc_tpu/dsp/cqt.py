@@ -4,11 +4,10 @@ bank.
 Covers the constant-Q capability of the reference's vendored pyfasst TF
 transforms (``dependencies/pyfasst-master/pyfasst/tftransforms/minqt.py``,
 ``hybridcqt.py`` — its "minimal"/hybrid CQT implementations): log-spaced
-center frequencies with per-bin Q-matched window lengths. TPU-first design:
+center frequencies with per-bin Q-matched window lengths. Accelerator-first design:
 instead of pyfasst's per-octave FFT recursion, the whole analysis is ONE
 ``lax.conv`` against a precomputed (2·n_bins, max_len) cos/sin kernel bank —
-the same fused frame+window+transform pattern as the convolutional STFT
-(dsp/stft.py), so it rides the MXU and compiles in seconds.
+framing, window and transform fused, so it runs as one dense op.
 
 The kernel for bin k with center frequency f_k = fmin·2^(k/b) is a Hann-
 windowed complex exponential of length N_k = ceil(Q·sr/f_k), Q = 1/(2^(1/b)−1),

@@ -2,7 +2,7 @@
 
 Replaces ``pysptk.lpc`` / ``pysptk.lpc2lsp`` used by the AMF frequency-warping
 variant (reference ``02_freq_warping_AMF.py:67-81``: hamming-windowed frames →
-per-frame LPC → line spectral pairs). TPU-first: autocorrelation via batched
+per-frame LPC → line spectral pairs). Accelerator-first: autocorrelation via batched
 rFFT, Levinson recursion as a ``lax.scan`` over the (small, static) order,
 vmapped over all frames; LSP roots found by sign-change scan + fixed-iteration
 bisection on the Chebyshev-transformed symmetric/antisymmetric polynomials.

@@ -1,4 +1,4 @@
-"""Mel-cepstral analysis as a batched Newton solver on the MXU.
+"""Mel-cepstral analysis as a batched Newton solver of matmuls.
 
 Replaces ``pysptk.mcep`` (C SPTK, called per frame through
 ``np.apply_along_axis`` at reference ``01_make_dict_parallel.py:126-129`` with
@@ -8,11 +8,11 @@ criterion  E = (1/2π)∫ [exp R(ω) − R(ω) − 1] dω  with
 R(ω) = log I(ω) − 2·Σ_m c_m cos(m·ω̃(ω)),  where ω̃ is the all-pass–warped
 frequency with warping factor α.
 
-TPU-first reformulation: instead of SPTK's per-frame recursive FFT machinery,
+Batched reformulation: instead of SPTK's per-frame recursive FFT machinery,
 we evaluate the warped cosine basis Φ[n,m] = cos(m·ω̃(ω_n)) once on the FFT
 grid and express every Newton step as dense batched matmuls over frames
 (gradient = Φᵀ·weighted residual, Hessian = ΦᵀWΦ per frame) + a batched
-(order+1)² Cholesky solve — all MXU work, vmapped over thousands of frames at
+(order+1)² Cholesky solve — all matmul work, vmapped over thousands of frames at
 once. The solution is the stationary point of the same criterion SPTK solves.
 """
 

@@ -5,7 +5,7 @@ the alignment features (``01_make_dict_parallel.py:101``) and the hand-rolled
 filterbank in ``zz_audio_utilities.py:81-178``. Semantics follow librosa's
 defaults of that era: Slaney mel scale (htk=False), slaney area-normalized
 triangular filters, power spectrogram, power→dB with top_db=80, orthonormal
-DCT-II. All of it is matmuls + elementwise → MXU/VPU friendly.
+DCT-II. All of it is matmuls + elementwise → friendly to any accelerator.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ guaranteed per-bin minimum Q and an EXACT iterative inverse.
 
 Covers pyfasst's ``MinQTKernel``/``MinQTransfo``
 (``dependencies/pyfasst-master/pyfasst/tftransforms/minqt.py:309-402`` — the
-one transform VERDICT r1 flagged as having no dedicated counterpart). The
+one transform that had no dedicated counterpart). The
 defining construction (minqt.py:318-325): with ``b`` bins per octave,
 
     Q    = q / (2^(1/b) − 1)            # the minimum Q of the transform
@@ -16,7 +16,7 @@ FFT, whose effective Q is ``p ≥ Kmax ≥ Q`` — so EVERY bin of the transform
 satisfies Q ≥ Q_min, hence "minimum-Q". Atoms use the sqrt-Blackman-Harris
 window, as pyfasst does (its ``sqrt_blackmanharris`` default).
 
-TPU-first design — nothing resembles pyfasst's per-octave FFT recursion with
+Accelerator-first design — nothing resembles pyfasst's per-octave FFT recursion with
 per-octave decimation and atom hops:
 
 - all atoms live on ONE common hop grid (pyfasst's "rasterized" view), and
@@ -183,7 +183,7 @@ def iminqt(
     matches ``coeffs`` (exact reconstruction for in-band signals).
 
     Solves (AᴴA) x = Aᴴ c by conjugate gradients; both operators are the
-    analysis conv and its transpose — all MXU work, no matrix ever built."""
+    analysis conv and its transpose — all matmul work, no matrix ever built."""
     p = minqt_plan(sr, bins_per_octave, float(fmin), lin_fft, float(q), hop)
     kernel = jnp.asarray(p.kernel)
     lead = coeffs.shape[:-2]

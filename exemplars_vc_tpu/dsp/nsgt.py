@@ -6,9 +6,9 @@ construction, nsgtf/nsigtf forward/inverse, nsdual dual frames): a painless
 constant-Q Gabor frame with frequency-adaptive windows and perfect
 reconstruction through the canonical dual frame.
 
-TPU-first design, not a translation: pyfasst runs one ragged per-band FFT per
+Accelerator-first design, not a translation: pyfasst runs one ragged per-band FFT per
 window via numpy; here every step is a static-shape batched matmul. The whole
-signal spectrum comes from the Cooley-Tukey matmul FFT (``dsp/fft.py``), the
+signal spectrum comes from the native FFT (``dsp/fft.py``), the
 band analysis is one gather + one length-M batched inverse DFT over ALL bands
 at once (matrix form: every band shares the same number of time samples M,
 chosen as a divisor of the padded signal length so the modulation property
@@ -65,9 +65,8 @@ def _is_smooth(n: int) -> bool:
 
 @lru_cache(maxsize=8)
 def _plan(sr: int, Ls: int, fmin: float, bins_per_octave: int) -> NSGTPlan:
-    # pad to 256×(7-smooth): keeps every Cooley-Tukey factor of the length-L
-    # FFT (and of every divisor M) small, so the matmul FFT never falls back
-    # to a dense prime-length DFT matrix
+    # pad to 256×(7-smooth): keeps every prime factor of the length-L FFT
+    # (and of every divisor M) small, so no FFT meets a large prime length
     m = -(-Ls // 256)
     while not _is_smooth(m):
         m += 1

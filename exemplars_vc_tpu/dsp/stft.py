@@ -7,14 +7,12 @@ Replaces librosa/numpy STFT use in the reference:
   (``01_make_dict_parallel.py:126``)
 - the hand-rolled reconstruction stft/istft (``zz_audio_utilities.py:181-218``)
 
-Design: framing is one strided gather; the FFT goes through
-``exemplars_vc_tpu.dsp.fft`` (matmul-DFT on this TPU backend, which has no
-XLA FFT); ISTFT does window-sum–normalized overlap-add (mathematically exact
-under NOLA, unlike the reference's unnormalized overlap-add), implemented as
-an r-tap transposed convolution over the frame axis (r = n_fft/hop
-contributing frames per sample) — conv-OLA compiles ~100× faster on this
-backend than the earlier scatter-add formulation and is numerically
-identical; see BENCHMARKS.md's compile table.
+Design: framing is one strided gather and the FFT is XLA's native one
+(``exemplars_vc_tpu.dsp.fft``). ISTFT does window-sum–normalized overlap-add
+(mathematically exact under NOLA, unlike the reference's unnormalized
+overlap-add), implemented as an r-tap transposed convolution over the frame
+axis (r = n_fft/hop contributing frames per sample) — a single dense op with
+static shapes in place of a scatter-add, numerically identical.
 """
 
 from __future__ import annotations
@@ -33,41 +31,10 @@ from exemplars_vc_tpu.dsp.windows import get_window
 def frame_signal(x: jnp.ndarray, frame_length: int, hop_length: int) -> jnp.ndarray:
     """(T,) -> (n_frames, frame_length), no padding (librosa.util.frame).
 
-    One strided gather. (A slice+stack reformulation was tried and reverted:
-    it compiled 200 s vs 1.1 s for the gather on this TPU backend with no
-    measurable runtime win — see BENCHMARKS.md.)"""
+    One strided gather."""
     n = (x.shape[-1] - frame_length) // hop_length + 1
     idx = jnp.arange(n)[:, None] * hop_length + jnp.arange(frame_length)[None, :]
     return x[..., idx]
-
-
-def _stft_conv(x: jnp.ndarray, n_fft: int, hop_length: int, window: str) -> jnp.ndarray:
-    """STFT as ONE strided convolution: framing + window + DFT fused.
-
-    The kernel is the windowed DFT basis (2·(n_fft//2+1) output channels =
-    cos/sin), stride = hop — a single MXU op. This is the TPU path: the
-    gather-framing alternative runs ~4× slower at runtime and the
-    slice-stack alternative compiles 200× slower (measured; BENCHMARKS.md).
-    Input x: (..., T_padded) already centered-padded; returns complex
-    (..., n_frames, n_fft//2+1)."""
-    from exemplars_vc_tpu.dsp.fft import _rdft_mats
-
-    lead = x.shape[:-1]
-    xb = x.reshape((-1, 1, x.shape[-1])).astype(jnp.float32)    # (N, 1, T)
-    C, S = _rdft_mats(n_fft)                                    # (n_fft, bins)
-    w = get_window(window, n_fft, periodic=True, dtype=jnp.float32)
-    basis = jnp.concatenate(
-        [jnp.asarray(C), jnp.asarray(S)], axis=1
-    ) * w[:, None]                                              # (n_fft, 2·bins)
-    kernel = basis.T[:, None, :]                                # (O=2·bins, I=1, n_fft)
-    out = jax.lax.conv_general_dilated(
-        xb, kernel, window_strides=(hop_length,), padding="VALID",
-        dimension_numbers=("NCH", "OIH", "NCH"),
-    )                                                           # (N, 2·bins, F)
-    n_bins = n_fft // 2 + 1
-    re = jnp.moveaxis(out[:, :n_bins, :], 1, 2)
-    im = jnp.moveaxis(out[:, n_bins:, :], 1, 2)
-    return jax.lax.complex(re, im).reshape(lead + re.shape[1:])
 
 
 @partial(
@@ -87,13 +54,10 @@ def stft(
     ``center=True`` + periodic hann + reflect padding matches the librosa
     defaults the reference was built against. Frame axis is time-major (the
     reference immediately transposes librosa's output to frames-major —
-    ``03_a_b_r_parallel.py:103``). CPU uses framing + native FFT; TPU uses the
-    fused convolutional DFT (see _stft_conv)."""
+    ``03_a_b_r_parallel.py:103``)."""
     if center:
         pad = [(0, 0)] * (x.ndim - 1) + [(n_fft // 2, n_fft // 2)]
         x = jnp.pad(x, pad, mode=pad_mode)
-    if not _fft._use_native():
-        return _stft_conv(x, n_fft, hop_length, window)
     w = get_window(window, n_fft, periodic=True, dtype=x.dtype)
     frames = frame_signal(x, n_fft, hop_length)
     return _fft.rfft(frames * w, n=n_fft)
@@ -110,8 +74,7 @@ def _ola_conv(frames: jnp.ndarray, hop: int) -> jnp.ndarray:
     the output row q (of hop samples) is Σ_k chunks[q−k, k] — a depthwise
     r-tap convolution along the frame axis with a flipped-identity r×r
     kernel (r=5 for the 400/80 default: ~1 MFLOP, vs 9 GFLOP for the dense
-    identity-kernel transposed conv, and compiles in seconds where slice- or
-    scatter-based formulations pathologize this backend)."""
+    identity-kernel transposed conv)."""
     n_frames, n_fft = frames.shape
     if n_fft % hop == 0:
         r = n_fft // hop
@@ -160,9 +123,7 @@ def istft(
     out_len = n_fft + hop_length * (n_frames - 1)
 
     # overlap-add as a fractionally-strided (transposed) convolution with a
-    # flipped-identity kernel: y[τ] = Σ_f frames[f, τ − f·hop]. One TPU conv;
-    # both the scatter-add and the slice-stack formulations were measured
-    # pathological on this backend (serializing scatters / 200 s compiles).
+    # flipped-identity kernel: y[τ] = Σ_f frames[f, τ − f·hop]
     y = _ola_conv(frames, hop_length)
     wsum = _ola_conv(
         jnp.broadcast_to(w * w, (n_frames, n_fft)), hop_length

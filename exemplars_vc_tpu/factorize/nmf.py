@@ -14,12 +14,13 @@ update (W-side, H fixed) is
     H ← H ⊙ (X·Aᵀ) / (H·(A·Aᵀ))          [Frobenius]
     H ← H ⊙ ((X ⊘ H·A)·Aᵀ) / (1·Aᵀ)      [KL]
 
-TPU-first choices:
+Design choices:
 - X·Aᵀ is loop-invariant → computed once.
 - The denominator is associated as (H·A)·Aᵀ, NOT H·(A·Aᵀ): with K exemplar
   frames ≫ D feature dims this is 2·F·K·D instead of F·K² FLOPs per iteration
-  and avoids materializing the K×K Gram (576 MB at K=12k). All matmuls hit
-  the MXU; the elementwise multiply/divide fuses into the epilogue.
+  and avoids materializing the K×K Gram (576 MB at K=12k). The elementwise
+  multiply/divide fuses into the matmul epilogue.
+- Every matmul runs at full float32 precision (``_HIGHEST``).
 - Convergence mirrors sklearn: ‖X − H·A‖_F checked every 10 iterations,
   stop when (prev_err − err) < tol·err_init, inside one ``lax.while_loop``
   (no host round-trips).
@@ -36,6 +37,9 @@ import jax
 import jax.numpy as jnp
 
 _EPS = 2.220446049250313e-16  # np.finfo(float64).eps — sklearn's EPSILON
+# Every matmul here asks for full float32 precision: a GPU may otherwise run
+# float32 matmuls in TF32, and the solve is held to sklearn's float64 MU.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class NmfState(NamedTuple):
@@ -51,18 +55,21 @@ def _mu_step_frobenius(H, X, A, numerator, l1=0.0):
     # conventionally uses sparse activations — Wu et al., the paper the
     # reference implements, penalize H exactly this way)
     denom = jnp.dot(
-        jnp.dot(H, A, preferred_element_type=jnp.float32).astype(H.dtype),
+        jnp.dot(H, A, precision=_HIGHEST,
+                preferred_element_type=jnp.float32).astype(H.dtype),
         A.T,
-        preferred_element_type=jnp.float32,
+        precision=_HIGHEST, preferred_element_type=jnp.float32,
     ) + l1
     denom = jnp.where(denom == 0.0, _EPS, denom)
     return (H.astype(jnp.float32) * (numerator.astype(jnp.float32) / denom)).astype(H.dtype)
 
 
 def _mu_step_kl(H, X, A, row_sum_A, l1=0.0):
-    WH = jnp.dot(H, A, preferred_element_type=jnp.float32).astype(H.dtype)
+    WH = jnp.dot(H, A, precision=_HIGHEST,
+                 preferred_element_type=jnp.float32).astype(H.dtype)
     ratio = X / jnp.maximum(WH, _EPS)
-    num = jnp.dot(ratio, A.T, preferred_element_type=jnp.float32).astype(H.dtype)
+    num = jnp.dot(ratio, A.T, precision=_HIGHEST,
+                  preferred_element_type=jnp.float32).astype(H.dtype)
     denom = row_sum_A + l1
     denom = jnp.where(denom == 0.0, _EPS, denom)
     return H * (num / denom)
@@ -96,32 +103,20 @@ def nmf_activations(
     activations; sklearn exposes the same thing as ``alpha_W``/``l1_ratio``).
     λ=0 is exactly the unpenalized sklearn-parity update.
     """
-    F, D = X.shape
+    F = X.shape[0]
     K = A.shape[0]
     out_dtype = X.dtype
     dtype = work_dtype or X.dtype
     X = X.astype(dtype)
     A = A.astype(dtype)
 
-    # H0 average uses the TRUE feature count (computed before lane padding)
     avg = jnp.sqrt(jnp.maximum(X.mean(), 0.0) / K)
     H0 = jnp.full((F, K), avg, dtype=dtype)
 
-    # Lane-pad the feature axis to a multiple of 128 (the TPU lane width).
-    # Zero columns are exactly inert in every quantity below — numerator
-    # X·Aᵀ, denominator (H·A)·Aᵀ, KL ratio (0/eps·Aᵀ), row sums, and the
-    # Frobenius error (0 − 0 residual) — so H and the reported error are
-    # exact (identical up to float summation order) while the matmuls run on
-    # full lanes (measured ~8% faster per MU iteration at the production
-    # D=201 → 256, BENCHMARKS.md).
-    if D % 128:
-        pad = 128 * ((D + 127) // 128) - D
-        X = jnp.pad(X, ((0, 0), (0, pad)))
-        A = jnp.pad(A, ((0, 0), (0, pad)))
-
     if beta_loss == "frobenius":
         # accumulate the loop-invariant numerator in f32 even in bf16 mode
-        numerator = jnp.dot(X, A.T, preferred_element_type=jnp.float32).astype(dtype)
+        numerator = jnp.dot(X, A.T, precision=_HIGHEST,
+                            preferred_element_type=jnp.float32).astype(dtype)
         step = lambda H: _mu_step_frobenius(H, X, A, numerator, l1=l1)
     elif beta_loss in ("kullback-leibler", "kl"):
         row_sum_A = jnp.sum(A, axis=1)[None, :].astype(dtype)
@@ -130,7 +125,8 @@ def nmf_activations(
         raise ValueError(f"unknown beta_loss {beta_loss!r}")
 
     def frob_error(H):
-        R = X.astype(jnp.float32) - jnp.dot(H, A, preferred_element_type=jnp.float32)
+        R = X.astype(jnp.float32) - jnp.dot(
+            H, A, precision=_HIGHEST, preferred_element_type=jnp.float32)
         return jnp.sqrt(jnp.sum(R * R))
 
     def kl_error(H):
@@ -140,7 +136,8 @@ def nmf_activations(
         # — NOT the Frobenius norm; the tol cadence must match it
         Xf = X.astype(jnp.float32)
         Yh = jnp.maximum(
-            jnp.dot(H, A, preferred_element_type=jnp.float32), 1.1920929e-07)
+            jnp.dot(H, A, precision=_HIGHEST,
+                    preferred_element_type=jnp.float32), 1.1920929e-07)
         div = (jnp.sum(jnp.where(Xf > 0,
                                  Xf * jnp.log(jnp.maximum(Xf, 1e-30) / Yh),
                                  0.0))
@@ -193,9 +190,9 @@ def prune_topk_refine(
     (the L1 lever tempers but never zeroes it). This refinement imposes hard
     per-frame sparsity: take the global solve's H, keep each frame's k
     largest activations, gather that frame's private (k, D) dictionary, and
-    re-run the same MU update batched over frames (einsum batched matvecs —
-    MXU-shaped, k and D both lane-sized). The refined activations scatter
-    back into a (F, K) H with ≤k nonzeros per row, so every downstream
+    re-run the same MU update batched over frames (einsum batched matvecs).
+    The refined activations scatter back into a (F, K) H with ≤k nonzeros
+    per row, so every downstream
     consumer (conversion H·B, residual, serving) is unchanged.
 
     Unlike ``sparsity_l1`` this is supported-set sparsity — the re-solve is
@@ -215,20 +212,20 @@ def prune_topk_refine(
     Af = Asel.astype(jnp.float32)
 
     if beta_loss == "frobenius":
-        num = jnp.einsum("fd,fkd->fk", Xf, Af)         # loop-invariant
+        num = jnp.einsum("fd,fkd->fk", Xf, Af, precision=_HIGHEST)  # loop-invariant
 
         def step(h):
-            WH = jnp.einsum("fk,fkd->fd", h, Af)
-            denom = jnp.einsum("fd,fkd->fk", WH, Af)
+            WH = jnp.einsum("fk,fkd->fd", h, Af, precision=_HIGHEST)
+            denom = jnp.einsum("fd,fkd->fk", WH, Af, precision=_HIGHEST)
             return h * num / jnp.where(denom == 0.0, _EPS, denom)
     elif beta_loss in ("kullback-leibler", "kl"):
         rs = jnp.sum(Af, axis=2)                       # (F, k)
         rs = jnp.where(rs == 0.0, _EPS, rs)
 
         def step(h):
-            WH = jnp.einsum("fk,fkd->fd", h, Af)
+            WH = jnp.einsum("fk,fkd->fd", h, Af, precision=_HIGHEST)
             ratio = Xf / jnp.maximum(WH, _EPS)
-            return h * jnp.einsum("fd,fkd->fk", ratio, Af) / rs
+            return h * jnp.einsum("fd,fkd->fk", ratio, Af, precision=_HIGHEST) / rs
     else:
         raise ValueError(f"unknown beta_loss {beta_loss!r}")
 
@@ -236,7 +233,7 @@ def prune_topk_refine(
     # report the error in the SAME metric as nmf_activations for this
     # beta_loss (Frobenius norm, or sqrt(2·D_KL) for KL) so NmfState.error
     # stays comparable before/after enabling prune_topk
-    Yh = jnp.einsum("fk,fkd->fd", h, Af)
+    Yh = jnp.einsum("fk,fkd->fd", h, Af, precision=_HIGHEST)
     if beta_loss == "frobenius":
         resid = Xf - Yh
         err = jnp.sqrt(jnp.sum(resid * resid))
@@ -265,7 +262,7 @@ def sharpen_activations(
     fit before conversion. γ = 1 with the refit is a pure per-frame gain
     re-calibration (s ≈ 1 at the solver fixed point)."""
     Hs = jnp.power(H, gamma)
-    Xh = jnp.dot(Hs, A, preferred_element_type=jnp.float32)
+    Xh = jnp.dot(Hs, A, precision=_HIGHEST, preferred_element_type=jnp.float32)
     s = (X * Xh).sum(axis=1) / jnp.maximum((Xh * Xh).sum(axis=1), _EPS)
     return jnp.maximum(s, 0.0)[:, None].astype(H.dtype) * Hs
 
@@ -289,7 +286,7 @@ def residual_compensation(
     and are reproduced here; use this mode only for comparing against
     reference artifacts.
     """
-    Xhat = jnp.dot(H, A, preferred_element_type=X.dtype)
+    Xhat = jnp.dot(H, A, precision=_HIGHEST, preferred_element_type=X.dtype)
     if mode == "correct":
         return X / jnp.maximum(Xhat, _EPS)
     elif mode == "reference":
@@ -309,7 +306,7 @@ def convert_features(
     The reference computes exp(log(Hᵀ·B) + log R) (``04_align_n_nmf.py:371-373``)
     which is exactly this product; the STFT path is plain Hᵀ·B (``:390-391``).
     """
-    Y = jnp.dot(H, B, preferred_element_type=H.dtype)
+    Y = jnp.dot(H, B, precision=_HIGHEST, preferred_element_type=H.dtype)
     if R is not None:
         Y = Y * R
     return Y

@@ -3,7 +3,7 @@
 Completes the reference's unfinished QRMF experiment
 (``04_align_n_qrmf.py:192-216`` replaces the NMF ``_factorize`` with a
 ``scipy.linalg.qr`` call but has a syntax error and never ran). Two working
-TPU-native variants:
+batched variants:
 
 - :func:`qr_activations` — unconstrained least squares X ≈ H·A via the QR
   decomposition of Aᵀ (one QR + two triangular solves; exact minimizer, may
@@ -48,7 +48,7 @@ def nnls_activations(X: jnp.ndarray, A: jnp.ndarray, n_iter: int = 200) -> jnp.n
 
     Mirrors the iteration budget of the reference's 'cd' solver variant
     (``04_align_n_nmf_pytorch.py:207-208``, max_iter=200) with a solver that
-    is pure matmuls (MXU) instead of coordinate descent."""
+    is pure matmuls instead of coordinate descent."""
     F, D = X.shape
     K = A.shape[0]
     dtype = X.dtype

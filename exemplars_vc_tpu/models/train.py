@@ -5,7 +5,7 @@ reference's ``L1Loss(size_average=False)`` — ``:149``), RMSprop(lr=5e-3,
 weight_decay=1e-4) (``:150``), nb_epoch epochs, held-out 20% eval each epoch,
 best-average-loss checkpointing and patience early stopping (``:222-242``).
 
-TPU-first: instead of one python-level optimizer step per utterance with
+Accelerator-first: instead of one python-level optimizer step per utterance with
 host↔device transfers each iteration, utterances are padded/masked into a
 single device batch and every epoch is a handful of jitted update steps; the
 batch axis is the data-parallel axis over a mesh.

@@ -6,7 +6,7 @@ head ``fc4: Linear(hidden→out)`` (the fc1/fc2/fc3 MLP heads exist but are
 bypassed in the reference forward — ``models.py:83-87``; we keep the same
 effective architecture and expose the deep head as an option).
 
-TPU-first: time recurrence is one ``lax.scan`` whose step does a single fused
+Accelerator-first: time recurrence is one ``lax.scan`` whose step does a single fused
 (4H × (in+H)) matmul per layer; utterance batching via ``vmap`` with masks, so
 the whole training set can run as one device batch instead of the reference's
 per-utterance python loop (``02_freq_warping_neural.py:161-191``).

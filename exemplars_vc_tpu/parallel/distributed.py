@@ -2,9 +2,9 @@
 
 The reference's 'cluster tooling' is two scp scripts (``push_to_server.sh:1``).
 Real replacement: ``jax.distributed.initialize`` forms the process group
-across hosts (DCN); the global device list then feeds one Mesh spanning the
-pod slice, and every collective in sharded_nmf/sharded_dtw rides ICI within
-hosts and DCN across."""
+across hosts (DCN); the global device list then feeds one Mesh spanning all
+hosts, and every collective in sharded_nmf/sharded_dtw rides the device
+interconnect within a host and the network across hosts."""
 
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ def initialize_multihost(
     process_id: int | None = None,
 ) -> dict:
     """Idempotent jax.distributed bootstrap. Arguments default to the standard
-    env vars (JAX_COORDINATOR_ADDRESS etc.) or TPU-pod auto-detection.
+    env vars (JAX_COORDINATOR_ADDRESS etc.) or cluster auto-detection.
 
     Returns a summary dict {process_index, process_count, local_devices,
     global_devices}.

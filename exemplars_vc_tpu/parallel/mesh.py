@@ -7,7 +7,7 @@ module defines the framework's two parallel axes from scratch:
 - ``data``: utterance-batch data parallelism (DTW pairs, feature extraction,
   warping-net training batches);
 - ``dict``: the exemplar dictionary axis — NMF's K dimension sharded across
-  chips, with activation reductions riding ICI (see sharded_nmf).
+  devices, with one activation all-reduce per iteration (see sharded_nmf).
 
 Axes live on one :class:`jax.sharding.Mesh`; multi-host pods get their
 process groups from :mod:`exemplars_vc_tpu.parallel.distributed` over DCN.

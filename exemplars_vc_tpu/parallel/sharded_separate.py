@@ -7,7 +7,7 @@ fan-out. Here the whole corpus is one jitted computation: the multichannel
 NMF EM (separate.multichannel) vmaps over a padded batch of mixture STFTs,
 and the batch axis shards over the mesh's ``data`` axis — every EM step runs
 on all mixtures on all chips with NO cross-device communication (mixtures
-are independent; the sharding is pure SPMD fan-out, the TPU-native analog of
+are independent; the sharding is pure SPMD fan-out, the accelerator analog of
 the reference's process pool).
 """
 

@@ -5,10 +5,11 @@ The reference has no CLI at all — every knob is an INI edit and each stage is
 planned). Here: one entry point with subcommands mirroring stages 01-05 plus
 training, with ``-o section.key=value`` overrides.
 
-Usage:
-    python -m exemplars_vc_tpu.pipelines.cli make-dict --data /root/reference/data
-    python -m exemplars_vc_tpu.pipelines.cli convert --data /root/reference/data \
-        --wav /root/reference/data/SF1/100001.wav --out /tmp/out.wav
+Usage (``corpus/`` as written by ``python -m exemplars_vc_tpu.io.synth_corpus
+--out corpus``, or any ``<speaker>/*.wav`` tree):
+    python -m exemplars_vc_tpu.pipelines.cli make-dict --data corpus/data
+    python -m exemplars_vc_tpu.pipelines.cli convert --data corpus/data \
+        --wav corpus/wav/SF1_100162.wav --out out.wav
 """
 
 from __future__ import annotations
@@ -36,12 +37,15 @@ def _add_common(p: argparse.ArgumentParser):
                    help="force a jax platform (e.g. cpu) before first use")
 
 
-def _setup(args):
-    if args.platform:
-        os.environ["JAX_PLATFORMS"] = args.platform
+def _force_platform(platform: str | None) -> None:
+    if platform:
         import jax
 
-        jax.config.update("jax_platforms", args.platform)
+        jax.config.update("jax_platforms", platform)
+
+
+def _setup(args):
+    _force_platform(args.platform)
     from exemplars_vc_tpu.runtime import enable_persistent_compilation_cache
 
     enable_persistent_compilation_cache()
@@ -242,11 +246,7 @@ def cmd_separate(args):
     """Source separation (the vendored-pyfasst capability, separate/)."""
     import numpy as np
 
-    if args.platform:
-        os.environ["JAX_PLATFORMS"] = args.platform
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
+    _force_platform(args.platform)
     import jax
     import jax.numpy as jnp
 
@@ -279,11 +279,7 @@ def cmd_separate_lead(args):
     """Lead/accompaniment separation (SIMM family, separate/)."""
     import numpy as np
 
-    if args.platform:
-        os.environ["JAX_PLATFORMS"] = args.platform
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
+    _force_platform(args.platform)
     import jax
     import jax.numpy as jnp
 

@@ -72,8 +72,8 @@ class HeldOutScore:
 def _configs(cfg: Config) -> dict[str, Config]:
     """The four canonical evaluation configs: each synthesis path × the
     reference-parity solver settings and the beyond-reference quality
-    settings, each chosen by HELD-OUT measurement (BENCHMARKS.md §held-out
-    quality): KL β-loss on both paths; context_frames stays 0 (the ±3-frame
+    settings, each chosen by HELD-OUT measurement on the real held-out
+    pair: KL β-loss on both paths; context_frames stays 0 (the ±3-frame
     context that helps in-dictionary hurts held-out — memorization); the
     WORLD path solves sp in the magnitude domain and drops the residual
     (R = X/(H·A) pulls held-out output back toward the source speaker)."""
@@ -130,7 +130,7 @@ def evaluate_heldout(
 
 def lever_configs(cfg: Config) -> dict[str, Config]:
     """Measured round-3 quality levers re-checked fold-averaged in the LOO
-    protocol (BENCHMARKS §held-out quality measured them on n=1 only):
+    protocol (they were measured on the held-out pair only):
     VTLP dictionary augmentation (the one lever that helped the STFT path)
     and the reference's ACTUAL f0 estimator (harvest,
     ``03_a_b_r_parallel.py:87``) on the WORLD parity path — the parity

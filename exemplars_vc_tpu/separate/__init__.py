@@ -1,10 +1,10 @@
-"""Source separation — TPU-native coverage of the reference's vendored
+"""Source separation — accelerator-native coverage of the reference's vendored
 pyfasst toolbox (SURVEY §2.2).
 
 The reference vendors pyfasst (``dependencies/pyfasst-master``) but never
 imports it from the pipeline (verified in SURVEY §1); its capabilities are
 nonetheless part of the component inventory. This package re-designs the
-core of that toolbox TPU-first:
+core of that toolbox Accelerator-first:
 
 - ``isnmf``: Itakura-Saito NMF multiplicative updates with optional fixed
   factors (≙ ``pyfasst/tools/nmf.py:NMF_decomposition/NMF_decomp_init``)

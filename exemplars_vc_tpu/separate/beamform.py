@@ -5,7 +5,7 @@ Covers the reference's vendored pyfasst spatial toolbox
 (``dependencies/pyfasst-master/pyfasst/spatial/dirdiag.py`` —
 ``make_MVDR_filter_target`` :20, ``generate_steer_vec_thetas`` :207,
 ``directivity_filter_diagram_ULA`` :71 — and
-``spatial/steering_vectors.py``). TPU-first design: the reference computes
+``spatial/steering_vectors.py``). Accelerator-first design: the reference computes
 per-frequency 2×2 inverses in a numpy loop and draws matplotlib figures; here
 steering-vector banks, covariance builds, MVDR solves, and angle×frequency
 response surfaces are all batched closed-form ops (the directivity "diagram"

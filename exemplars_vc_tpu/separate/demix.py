@@ -1,4 +1,4 @@
-"""DEMIX spatial clustering — anechoic mixing-direction estimation, TPU-first.
+"""DEMIX spatial clustering — anechoic mixing-direction estimation, batched.
 
 Covers the capability of the reference's vendored pyfasst DEMIX module
 (``dependencies/pyfasst-master/pyfasst/demixTF.py``: ``class DEMIX`` :106,
@@ -9,13 +9,13 @@ a pan angle θ (relative channel gain) and an inter-channel delay δ — by
 clustering time-frequency points whose local spatial covariance is close to
 rank 1.
 
-TPU-first re-design (pyfasst loops over TF points on host and grows Python
+Batched re-design (pyfasst loops over TF points on host and grows Python
 cluster objects point by point):
 
 - local spatial covariances for ALL TF bins at once via a separable box
   smoothing of the outer-product spectrogram (two small matmul-shaped
   convolutions);
-- closed-form 2×2 Hermitian eigen-decomposition per bin (pure VPU math, no
+- closed-form 2×2 Hermitian eigen-decomposition per bin (pure elementwise math, no
   linalg kernel), giving each TF point a principal direction and a DEMIX
   confidence = principal-to-residual eigenvalue ratio (``demixTF.py``'s
   ``confidenceFromVar`` is the same quantity transformed);
@@ -25,7 +25,7 @@ cluster objects point by point):
   refinement of each centroid on device;
 - per-cluster delay by scoring a static candidate-delay grid against the
   confidence-weighted inter-channel phases: one complex matmul
-  (points × delays), the TPU shape of DEMIX's ``identify_deltaT`` zoomed
+  (points × delays), the batched shape of DEMIX's ``identify_deltaT`` zoomed
   cross-correlation search.
 
 The estimated directions convert to steering vectors / rank-1 spatial
@@ -198,7 +198,7 @@ def demix(
 ) -> DemixEstimate:
     """Estimate anechoic mixing directions of a stereo mixture x (2, T).
 
-    The DEMIX pipeline (``demixTF.py:106-943``) re-shaped for TPU: STFT →
+    The DEMIX pipeline (``demixTF.py:106-943``) re-shaped for batched accelerators: STFT →
     batched local-covariance PCA features → confidence-weighted θ histogram
     → peak picking (host, ``n_sources=None`` keeps peaks above
     ``peak_rel_threshold``·max as pyfasst's adaptive thresholding does;
@@ -210,7 +210,7 @@ def demix(
     x = jnp.asarray(x, jnp.float32)
     if x.ndim != 2 or x.shape[0] != 2:
         raise ValueError(f"demix expects a stereo signal (2, T), got {x.shape}")
-    # complex glue must be jitted on this backend (separate/glue.py)
+    # complex glue runs jitted (separate/glue.py)
     X = stft_stack(x, n_fft, hop_length, fnc=True)       # (F, N, 2)
     kf, kn = neighborhood
 

@@ -1,4 +1,4 @@
-"""HMM spectral models for separation — pyfasst's MultiChanHMM, TPU-first.
+"""HMM spectral models for separation — pyfasst's MultiChanHMM, batched.
 
 Covers the reference's vendored pyfasst HMM time-constraint capability
 (``dependencies/pyfasst-master/pyfasst/audioModel.py``: ``MultiChanHMM``
@@ -10,7 +10,7 @@ costs plus −log transition penalties, and (for the 'free' prior) the
 transition matrix re-estimated from transition counts. 'SHMM' is the same
 with a fixed sticky transition prior (pyfasst uses 0.9 self-transition).
 
-TPU-first re-design (pyfasst loops states and frames in host numpy):
+Batched re-design (pyfasst loops states and frames in host numpy):
 
 - the whole per-state cost matrix is two matmuls (Σ_f z/w is (1/W)ᵀ·Z; the
   log terms are rank-1) — no per-state loop;

@@ -1,6 +1,6 @@
 """Itakura-Saito NMF multiplicative updates (plain and source/filter).
 
-TPU-native re-design of the reference's vendored pyfasst NMF tools
+Batched re-design of the reference's vendored pyfasst NMF tools
 (``dependencies/pyfasst-master/pyfasst/tools/nmf.py``):
 
 - ``NMF_decomposition`` / ``NMF_decomp_init`` (``tools/nmf.py:24-159``):
@@ -11,7 +11,7 @@ TPU-native re-design of the reference's vendored pyfasst NMF tools
   source/filter model SX ≈ (W·H) ⊙ (WFilt·HFilt) + Wres·Hres with the same
   multiplicative-update/normalization schedule.
 
-Here the whole iteration is one ``lax.fori_loop`` of fused MXU matmuls
+Here the whole iteration is one ``lax.fori_loop`` of fused matmuls
 under jit (the reference loops in numpy on host); orientation is
 (F, K)·(K, N) throughout — no transposed-storage tricks, XLA lays out the
 operands. eps matches pyfasst (1e-10).
@@ -59,8 +59,8 @@ def _update_H(SX, W, H):
 
 @partial(jax.jit, static_argnames=("n_iter", "update_W", "update_H"))
 def _is_nmf_loop(SX, W0, H0, n_iter: int, update_W: bool, update_H: bool):
-    # full-f32 matmuls: IS updates divide by v² — reduced TPU matmul
-    # precision destabilizes them (see stereo_simm._stereo_simm_loop)
+    # full-f32 matmuls: IS updates divide by v² — an accelerator's reduced
+    # default matmul precision destabilizes them (see stereo_simm._stereo_simm_loop)
     with jax.default_matmul_precision("highest"):
         return _is_nmf_loop_body(SX, W0, H0, n_iter, update_W, update_H)
 

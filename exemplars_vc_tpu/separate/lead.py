@@ -1,4 +1,4 @@
-"""Lead / accompaniment separation (SIMM) — pyfasst's SeparateLeadStereo, TPU-first.
+"""Lead / accompaniment separation (SIMM) — pyfasst's SeparateLeadStereo, batched.
 
 Covers the capability of the reference's vendored pyfasst lead-separation
 pipeline (``dependencies/pyfasst-master/pyfasst/SeparateLeadStereo/
@@ -12,12 +12,12 @@ decoded from the F0 activations by Viterbi tracking (the Cython
 restricts F0 activations to a band around the tracked melody; Wiener masks
 resynthesize lead and accompaniment.
 
-TPU-first choices: the F0-candidate dictionary is built as one broadcast
+Design choices: the F0-candidate dictionary is built as one broadcast
 lobe evaluation over (bins × candidates × harmonics) — no per-candidate
 loop; both SIMM passes are the jitted fused-matmul ``sf_nmf`` loop from
 ``separate.isnmf`` (≙ pyfasst ``SFNMF_decomp_init``); melody decoding is the
 batched Viterbi scan; masking/synthesis stay on device through the
-matmul-DFT ISTFT. pyfasst's per-channel instantaneous gains are subsumed by
+ISTFT. pyfasst's per-channel instantaneous gains are subsumed by
 the ratio-mask path here (its full spatial model lives in
 ``separate.multichannel``).
 """
@@ -217,7 +217,7 @@ def separate_lead(
         x_np = x_np[None, :]
     x = jnp.asarray(x_np)
     C, T = x.shape
-    # complex glue must be jitted on this backend (separate/glue.py);
+    # complex glue runs jitted (separate/glue.py);
     # model-input power is computed host-side in float64 for platform-
     # exact IS conditioning (glue._host_stft_power)
     X = host_stft_stack(x_np, n_fft, hop_length, fnc=True)  # (F, N, C)

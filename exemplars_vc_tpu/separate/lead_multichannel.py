@@ -1,4 +1,4 @@
-"""Multichannel source-F0-filter separation — pyfasst's composed model, TPU-first.
+"""Multichannel source-F0-filter separation — pyfasst's composed model, batched.
 
 Covers the two FASST subclasses the reference vendors that COMBINE the SIMM
 spectral model with the multichannel spatial EM
@@ -18,7 +18,7 @@ spectral model with the multichannel spatial EM
   parameters + spatial estimates into the composed model, and
   (4) re-estimates with the full EM before Wiener separation.
 
-TPU-first: the spatial E/M step is the shared batched
+Accelerator-first: the spatial E/M step is the shared batched
 ``multichannel._spatial_estep`` (all TF bins per step, closed-form 2×2
 Hermitian inverses); the lead source's spectral M-step is a fused-matmul
 IS multiplicative update of (HF0, FW, TW) toward its posterior spectral
@@ -113,7 +113,7 @@ def _sf_updates(z, WF0, WGAMMA, HF0, FW, TW):
 @partial(jax.jit, static_argnames=("n_em", "n_inner"))
 def _em_sf_loop(X, WF0, WGAMMA, HF00, FW0, TW0, W0, H0, R0,
                 n_em: int, n_inner: int):
-    # full-f32 matmuls throughout: TPU's default reduced matmul precision
+    # full-f32 matmuls throughout: an accelerator's reduced default precision
     # feeds the 2×2 covariance inverses enough error that the EM goes NaN
     # after a few steps (CPU computes the same graph in full f32 and is
     # stable); the context applies at trace time to every dot/einsum below
@@ -297,10 +297,10 @@ def separate_lead_multichannel(
 
     from exemplars_vc_tpu.separate.glue import unit_power
 
-    # complex glue must be jitted on this backend (separate/glue.py).
+    # complex glue runs jitted (separate/glue.py).
     # The composed fit runs on the UNIT-POWER STFT: its seeds (SIMM factors)
     # are estimated from unit-mean power spectra, and the raw-scale fit
-    # overflows float32 on TPU; the Wiener masks are scale-invariant, so the
+    # overflows float32 on an accelerator; the Wiener masks are scale-invariant, so the
     # final images are taken from the raw X.
     X = host_stft_stack(np.asarray(x), n_fft, hop_length, fnc=True)  # (F, N, C)
     X_fit = unit_power(X)
@@ -327,9 +327,7 @@ def separate_lead_multichannel(
         R_parts = []
         for img in (simm.lead, simm.accomp):
             est = demix(img, n_sources=1, n_fft=n_fft, hop_length=hop_length)
-            # stays a device array end-to-end: complex64 can neither run
-            # eagerly (incl. slicing) nor transfer to host on this backend
-            # (separate/glue.py)
+            # stays a device array end-to-end (separate/glue.py)
             R_parts.append(first_source(est.spatial_init(freqs)))
         R_lead, R_acc = R_parts
     elif spatial_init == "empirical":

@@ -1,4 +1,4 @@
-"""Multichannel NMF source separation — the FASST model family, TPU-first.
+"""Multichannel NMF source separation — the FASST model family, batched.
 
 Re-designs the core of the reference's vendored pyfasst
 (``dependencies/pyfasst-master/pyfasst/audioModel.py``: ``class FASST`` :66,
@@ -26,12 +26,11 @@ M-step:
     z_j(f,n) = (1/C) Re tr(R_j(f)⁻¹ R̂_j(f, n))
     one IS-NMF multiplicative update of (W_j, H_j) toward z_j.
 
-TPU-first choices: every EM step is a fixed-shape batch of einsums/matmuls
+Design choices: every EM step is a fixed-shape batch of einsums/matmuls
 over all (f, n) bins at once inside one ``lax.fori_loop`` (pyfasst loops in
 numpy on host); C×C inverses are closed-form for C=2 (the FASST use case) so
-no per-bin linalg kernel is needed; complex arrays never leave the device
-(this environment cannot transfer complex64 to host — separated audio is
-returned real via the matmul-DFT ISTFT).
+no per-bin linalg kernel is needed; complex arrays stay on the device
+(separated audio is returned real via the ISTFT).
 """
 
 from __future__ import annotations
@@ -59,7 +58,7 @@ def _inv_hermitian(M: jnp.ndarray) -> jnp.ndarray:
     """Inverse of batched Hermitian PSD matrices (..., C, C).
 
     C=2 is closed-form (one reciprocal determinant — no linalg kernel, maps
-    to pure VPU ops); larger C falls back to jnp.linalg.inv.
+    to pure elementwise ops); larger C falls back to jnp.linalg.inv.
     """
     C = M.shape[-1]
     if C == 1:
@@ -131,8 +130,8 @@ def _spatial_estep(XX, v, R):
     # ---- posterior spectral statistics --------------------------------------
     # ridge before inverting: a converged point source drives R_j(f) to the
     # rank-1 steering covariance, whose 2×2 determinant underflows float32
-    # and turns the EM NaN (measured on TPU at ~6 iterations; CPU survives
-    # marginally). R_new is trace-normalized to C, so a 1e-5·I load bounds
+    # and turns the EM NaN (measured on an accelerator at ~6 iterations; CPU
+    # survives marginally). R_new is trace-normalized to C, so a 1e-5·I load bounds
     # the condition number at ~2·10⁵ with negligible bias.
     Rinv = _inv_hermitian(R_new + 1e-5 * eye)
     z = jnp.real(jnp.einsum("jfcd,jfndc->jfn", Rinv, Rhat)) / C
@@ -204,8 +203,8 @@ def random_spatial_init(key, n_sources: int, F: int, C: int,
     pyfasst inits its mixing parameters randomly too (``audioModel.py``
     ``_initialize_structures``); the complex perturbation uses independent
     real/imaginary draws so sources start with distinct inter-channel PHASE
-    as well as gain. Jitted: the complex construction is UNIMPLEMENTED as
-    eager ops on this backend (separate/glue.py)."""
+    as well as gain. Jitted, like the rest of the complex glue
+    (separate/glue.py)."""
     kr, ki = jax.random.split(key)
     a = (jax.random.normal(kr, (n_sources, C))
          + 1j * jax.random.normal(ki, (n_sources, C)))
@@ -284,7 +283,7 @@ def separate_signal(
 
     x = jnp.asarray(x, jnp.float32)
     C, T = x.shape
-    # complex glue must be jitted on this backend (separate/glue.py);
+    # complex glue runs jitted (separate/glue.py);
     # platform-exact host-f64 STFT input (glue.host_stft_stack)
     X = host_stft_stack(np.asarray(x), n_fft, hop_length, fnc=True)  # (F, N, C)
 

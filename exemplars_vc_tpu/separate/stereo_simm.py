@@ -1,4 +1,4 @@
-"""Stereo SIMM — pyfasst's full stereo lead/accompaniment estimator, TPU-first.
+"""Stereo SIMM — pyfasst's full stereo lead/accompaniment estimator, batched.
 
 Matches the estimation depth of the reference's vendored
 ``dependencies/pyfasst-master/pyfasst/SeparateLeadStereo/SIMM/SIMM.py:397``
@@ -21,7 +21,7 @@ part is the three-layer decomposition WGAMMA·HGAMMA·HPHI (smooth atom bank
 × filter-shape weights × per-frame activation) — one layer deeper than the
 mono ``separate.isnmf.sf_nmf`` model.
 
-TPU-first: the whole iteration is a ``lax.scan`` of fused MXU matmuls over
+Accelerator-first: the whole iteration is a ``lax.scan`` of fused matmuls over
 both channels at once; nothing leaves the device. The float64 oracle for
 this module lives in ``tests/oracles/stereo_simm.py`` and the trajectory
 parity test in ``tests/test_stereo_simm.py``.
@@ -88,10 +88,10 @@ def _stereo_simm_loop(SXR, SXL, WF0, WGAMMA, alpha0, HGAMMA0, HPHI0, HF00,
                       beta0, HM0, WM0, n_iter: int, omega: float,
                       update_hgamma: bool, update_accomp: bool,
                       diag: bool = False):
-    # full-f32 matmuls: at TPU's default reduced matmul precision the
-    # structured lead model underfits so badly that the free accompaniment
-    # absorbs ~98% of the energy (measured; BENCHMARKS §separation). Trace-
-    # time context — applies to every dot below.
+    # full-f32 matmuls: at an accelerator's reduced default matmul
+    # precision the structured lead model underfits so badly that the free
+    # accompaniment absorbs ~98% of the energy (measured). Trace-time
+    # context — applies to every dot below.
     with jax.default_matmul_precision("highest"):
         return _stereo_simm_loop_body(
             SXR, SXL, WF0, WGAMMA, alpha0, HGAMMA0, HPHI0, HF00,
@@ -348,7 +348,7 @@ def separate_lead_stereo(
         x_np = np.stack([x_np, x_np])
     x = jnp.asarray(x_np)
     C, T = x.shape
-    # complex glue must be jitted on this backend (separate/glue.py);
+    # complex glue runs jitted (separate/glue.py);
     # unit-mean power scaling: the IS model is scale-covariant and the
     # Wiener masks scale-invariant, but the float32 factor chain overflows
     # on raw power values (the reference runs float64 on host). The model

@@ -20,7 +20,7 @@ sources, verified against the float64 oracle in
 4. SmoothingWithRecovery — cosine-part cepstrum of the symmetrized log
    spectrum, × sinc smoothing lifter × q1 compensation lifter (q1 = −0.15).
 
-TPU-first shape discipline: every stage is a batched gather/cumsum/rFFT over
+Static-shape discipline: every stage is a batched gather/cumsum/rFFT over
 all frames at once; per-frame data-dependent quantities (window length,
 smoothing width, DC cutoff) are masks and fractional gather positions, never
 dynamic shapes.

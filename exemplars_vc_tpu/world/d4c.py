@@ -19,7 +19,7 @@ against the float64 oracle in ``tests/oracles/world_d4c.py``:
 6. full band — linear interpolation in dB over [0 → −60 dB, 3 kHz bands,
    Nyquist → 0 dB], then 10^(dB/20).
 
-TPU-first: every stage is batched over all frames (gathers, one rFFT per
+Accelerator-first: every stage is batched over all frames (gathers, one rFFT per
 window kind, the banded box-smoothing stencil shared with cheaptrick, one
 ``jnp.sort`` over the band spectra); voicing decisions are masks, not
 branches. The reference grids (fft sizes, band centers, window length,

@@ -19,7 +19,7 @@ verified against the float64 oracle in ``tests/oracles/world_dio.py``:
    kills voiced runs shorter than voice_range_minimum frames, steps 3/4
    re-extend voiced regions from the candidate pool.
 
-TPU-first shape discipline: the channel filter bank is ONE grouped
+Static-shape discipline: the channel filter bank is ONE grouped
 ``lax.conv``; events are extracted by sign-change masks and ordinal
 scatters into fixed-size per-track arrays (no ragged lists); the
 interpolation is a batched ``searchsorted``; the contour fixes are

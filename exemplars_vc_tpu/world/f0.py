@@ -3,7 +3,7 @@
 Replaces ``pw.dio``/``pw.harvest`` + ``pw.stonemask`` (WORLD C++, used at
 reference ``03_a_b_r_parallel.py:85-92``, ``04_align_n_nmf.py:404-408``).
 
-TPU-first reformulation (functional equivalent, not a C port):
+Batched reformulation (functional equivalent, not a C port):
 
 - Candidate stage (dio's role): normalized autocorrelation per frame, computed
   for ALL frames at once via batched rFFT (numerator) + cumulative energies

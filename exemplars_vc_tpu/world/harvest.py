@@ -31,7 +31,7 @@ extension closes the same gaps whenever the pool supports them, and the
 residual disagreement is absorbed by the golden test's VUV gate
 (``tests/test_golden_harvest.py``, ≥0.90 measured ≥0.94).
 
-TPU-first shape discipline: the channel bank is ONE grouped ``lax.conv``
+Static-shape discipline: the channel bank is ONE grouped ``lax.conv``
 (158 channels at the default range); the four event tracks reuse DIO's
 masked ordinal scatters (``world.dio._event_tracks``) with an event
 capacity bounded by the channel bandwidth (crossings of a band-passed
@@ -216,7 +216,7 @@ def estimate_f0_harvest(
     # Flanagan refine materializes a (points, window) workspace, and the
     # flat 12·F1-point batch made that workspace ~4.2 GB per utterance —
     # the 7-utterance vmapped speaker program then failed AOT compilation
-    # outright (29.4 GB > 16 GB HBM, measured round 5). Mapping over the
+    # outright (29.4 GB of device memory). Mapping over the
     # 12 candidate rows divides the peak by 12 at the cost of 12 cheap
     # sequential steps; per-row math is unchanged.
     refined, score = jax.lax.map(

@@ -11,7 +11,7 @@ relative harmonic deviation; computing it here costs a few fused
 elementwise ops, so both callers share one body (they previously carried
 duplicated copies — dedup'd round 3, goldens unchanged).
 
-Batched TPU formulation: every (frame × candidate) window goes through one
+Batched formulation: every (frame × candidate) window goes through one
 static-shape rFFT pair sized by the LARGEST window (``max_win`` from
 f0_floor), masked per row — the same estimator on a finer bin grid for
 high-f0 rows (WORLD picks a per-frame FFT size instead).

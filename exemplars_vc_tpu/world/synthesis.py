@@ -3,14 +3,14 @@
 Replaces ``pw.synthesize`` (reference ``04_align_n_nmf.py:176``,
 ``05_conversion.py``-era usage). WORLD synthesizes pulse-by-pulse with
 minimum-phase responses — inherently sequential in the pulse positions.
-TPU-first alternative with the same inputs (f0, spectral envelope sp,
+accelerator-first alternative with the same inputs (f0, spectral envelope sp,
 aperiodicity ap): harmonic additive synthesis.
 
 - per-sample phase φ[t] = 2π·cumsum(f0↑)/sr (one scan-free cumsum),
 - harmonic amplitudes a_k[t] = √(4·sp(k·f0)·f0/sr)·√(1 − ap(k·f0)²),
   gathered by one interpolated lookup per harmonic and upsampled linearly
   in time (the 4·…/sr constant is calibrated analyzer-consistent — see the
-  inline note and BENCHMARKS.md §WORLD synthesis analyzer-consistency),
+  inline note and the analyzer-consistency measurement),
 - periodic part y_p[t] = Σ_k a_k[t]·cos(k·φ[t]) — a (T × K) elementwise
   block summed over K (all-cosine sum ⇒ pulse-train-like excitation shaped
   by the envelope, zero-phase),

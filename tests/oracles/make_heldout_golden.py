@@ -4,7 +4,7 @@ Run from the repo root (CPU backend, the same backend CI uses):
 
     python -m tests.oracles.make_heldout_golden [--store DIR]
 
-Protocol (VERDICT r2 item 1): convert the reference's own held-out eval
+Protocol: convert the reference's own held-out eval
 utterance (100162, ``04_align_n_nmf.py:439-440``) with the 8-pair bundled
 dictionaries under the four canonical configs of
 ``pipelines.evaluate._configs`` and record the DTW-aligned MCD vs the true

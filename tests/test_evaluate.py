@@ -1,9 +1,9 @@
-"""Held-out evaluation (pipelines/evaluate.py) + runtime cache tests.
+"""Held-out evaluation (pipelines/evaluate.py) on the seeded corpus.
 
 The held-out protocol is the reference's own: utterance 100162 is hard-coded
 as its eval input (``04_align_n_nmf.py:439-440``) and is NOT in the
-dictionary-build set; the pair is committed at ``wav/SF1_100162.wav`` /
-``wav/TF1_100162.wav``.
+dictionary-build set; the pair lives at ``wav/SF1_100162.wav`` /
+``wav/TF1_100162.wav`` beside the ``data/`` root.
 """
 
 import os
@@ -19,31 +19,27 @@ from exemplars_vc_tpu.pipelines.evaluate import (
     reference_artifacts,
 )
 
-DATA = "/root/reference/data"
-pytestmark = pytest.mark.skipif(
-    not os.path.isdir(os.path.join(DATA, "SF1")), reason="reference data missing"
-)
-
-
 @pytest.fixture(scope="module")
 def cfg():
     return load_config(overrides=["data.tar=TF1", "misc.nb_file=8"])
 
 
-def test_heldout_pair_exists_and_is_held_out(cfg):
-    src, tar = heldout_pair(DATA, cfg.data.src, cfg.data.tar)
+def test_heldout_pair_exists_and_is_held_out(cfg, corpus_data):
+    src, tar = heldout_pair(corpus_data, cfg.data.src, cfg.data.tar)
     assert os.path.isfile(src) and os.path.isfile(tar)
     # 100162 must NOT be a dictionary-build utterance — that's the point
-    bundled = set(os.listdir(os.path.join(DATA, "SF1")))
+    bundled = set(os.listdir(os.path.join(corpus_data, "SF1")))
     assert f"{HELD_OUT_UTT}.wav" not in bundled
 
 
-def test_reference_artifacts_readable():
+def test_reference_artifacts_readable(corpus_data):
     """The reference's committed end-to-end outputs are float64 wavs
     (scipy wavfile.write of float64 arrays) — io/wav must read them."""
     from exemplars_vc_tpu.io import read_wav
 
-    refs = reference_artifacts(DATA)
+    refs = reference_artifacts(corpus_data)
+    if not refs:
+        pytest.skip("the reference's committed outputs are not in this corpus")
     assert set(refs) == {"ref_demo_world", "ref_org_world"}
     for p in refs.values():
         x, sr = read_wav(p)
@@ -52,8 +48,8 @@ def test_reference_artifacts_readable():
         assert np.isfinite(x).all()
 
 
-def test_no_conversion_baseline_positive(cfg):
-    v = no_conversion_baseline(cfg, DATA)
+def test_no_conversion_baseline_positive(cfg, corpus_data):
+    v = no_conversion_baseline(cfg, corpus_data)
     assert np.isfinite(v) and v > 0
 
 
@@ -101,57 +97,34 @@ def test_convert_f0_logmv_identity():
     np.testing.assert_allclose(out[:, 0], f0[:, 0], rtol=1e-4)
 
 
-def test_persistent_cache_enable(tmp_path, monkeypatch):
-    import exemplars_vc_tpu.runtime as rt
-
-    monkeypatch.setattr(rt, "_ENABLED", False)
-    d = str(tmp_path / "xla_cache")
-    got = rt.enable_persistent_compilation_cache(d)
-    assert got == d and os.path.isdir(d)
-    import jax
-
-    assert jax.config.jax_compilation_cache_dir == d
-    # idempotent — a second call is a no-op, not an error
-    assert rt.enable_persistent_compilation_cache(d) == d
-
-
-def test_persistent_cache_off(monkeypatch):
-    import exemplars_vc_tpu.runtime as rt
-
-    monkeypatch.setattr(rt, "_ENABLED", False)
-    assert rt.enable_persistent_compilation_cache("off") == "off"
-    assert rt._ENABLED is False
-
-
-def test_sync_stages_timing_keys(cfg, tmp_path):
+def test_sync_stages_timing_keys(cfg, tmp_path, corpus_data):
     """sync_stages renames the solver/synthesis stages so the async and
-    fenced views can't be confused (VERDICT r2 weak 2)."""
+    fenced views can't be confused."""
     from exemplars_vc_tpu.io import ArtifactStore
     from exemplars_vc_tpu.pipelines.convert import convert_utterance
 
     store = ArtifactStore(str(tmp_path / "store"))
-    wav = os.path.join(DATA, "SF1", "100001.wav")
-    res_async = convert_utterance(cfg, store, DATA, wav, nb_file=2,
+    wav = os.path.join(corpus_data, "SF1", "100001.wav")
+    res_async = convert_utterance(cfg, store, corpus_data, wav, nb_file=2,
                                   synth_iters=5)
     assert "nmf_dispatch" in res_async.timings
     assert "synthesis+nmf_drain" in res_async.timings
-    res_sync = convert_utterance(cfg, store, DATA, wav, nb_file=2,
+    res_sync = convert_utterance(cfg, store, corpus_data, wav, nb_file=2,
                                  synth_iters=5, sync_stages=True)
     assert "nmf_solve" in res_sync.timings
     assert "synthesis" in res_sync.timings
 
 
-def test_evaluate_loo_two_folds(cfg, tmp_path):
+def test_evaluate_loo_two_folds(cfg, tmp_path, corpus_data):
     """Bounded LOO smoke/gate: two folds, stft_quality only. Each fold's
     dictionary excludes the held-out pair (7 pairs), and the fold-mean must
-    beat the no-conversion anchor mean by ≥ 0.8 dB (the full 8-fold TPU run
-    is recorded in BENCHMARKS §leave-one-out)."""
+    beat the no-conversion anchor mean by ≥ 0.8 dB."""
     from exemplars_vc_tpu.io import ArtifactStore
     from exemplars_vc_tpu.pipelines.evaluate import evaluate_loo
 
     store = ArtifactStore(str(tmp_path / "loo_store"))
     results, summary = evaluate_loo(
-        cfg, store, DATA, configs=["stft_quality"], synth_iters=20,
+        cfg, store, corpus_data, configs=["stft_quality"], synth_iters=20,
         folds=["100001", "100005"],
         audio_dir=str(tmp_path / "loo_audio"))
     assert [f.utt for f in results] == ["100001", "100005"]

@@ -1,6 +1,6 @@
 """Dictionary cleaning (`data.dict_prune_frac`): mask semantics.
 
-Measured LOO effect is NEUTRAL for MCD (BENCHMARKS §held-out quality
+Measured LOO effect is NEUTRAL for MCD (measured on the real held-out pair
 round-5: 6.16 vs 6.15 on the sweep folds) — the lever ships as an opt-in
 for perceptual experiments, so these tests pin only its mechanics:
 ranking by alignment cost, the kept fraction, inertness of zeroed rows.

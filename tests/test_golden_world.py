@@ -115,7 +115,7 @@ def test_d4c_matches_world_oracle(goldens):
 
 def test_d4c_known_hnr_quantitative():
     """Quantitative aperiodicity on synthetic harmonic+noise mixes at known
-    HNRs (VERDICT r1 item 7): the estimated band aperiodicity must decrease
+    HNRs: the estimated band aperiodicity must decrease
     monotonically with HNR and land near sqrt(noise/total)."""
     from exemplars_vc_tpu.world.d4c import d4c_aperiodicity
 

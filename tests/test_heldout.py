@@ -1,4 +1,4 @@
-"""Held-out quality gates — the numbers of record (VERDICT r2 item 1).
+"""Held-out quality gates — the numbers of record.
 
 Every assertion here converts the reference's own held-out eval utterance
 (100162, ``04_align_n_nmf.py:439-440``) with the full 8-pair bundled
@@ -67,8 +67,8 @@ def test_heldout_world_quality(cfg, store):
     mcd = float(res.mcd_vs_reference)
     assert mcd <= float(GOLD["world_quality_mcd"]) + 0.3, mcd
     # below the no-conversion anchor, and within 1.5 dB of the STFT path
-    # (VERDICT r2 item 4's target) — the WORLD vocoder's own resynthesis
-    # floor on this utterance is 5.41 dB MCD (BENCHMARKS.md)
+    # — the WORLD vocoder's own resynthesis
+    # floor on this utterance is 5.41 dB MCD
     assert mcd < float(GOLD["no_conversion_mcd"]), mcd
     assert mcd <= float(GOLD["stft_quality_mcd"]) + 1.5, mcd
 

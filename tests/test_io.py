@@ -59,23 +59,19 @@ def test_read_reference_wav(sf1_wav):
     assert np.max(np.abs(x)) <= 1.0
 
 
-def test_load_speaker_cache(tmp_path):
-    import os
-
+def test_load_speaker_cache(tmp_path, corpus_data):
     from exemplars_vc_tpu.io import store as store_mod
 
-    if not os.path.isdir("/root/reference/data/SF1"):
-        return
     store_mod._SPEAKER_CACHE.clear()
-    sigs, sr = load_speaker("/root/reference/data", "SF1", nb_file=3, cache_dir=str(tmp_path))
+    sigs, sr = load_speaker(corpus_data, "SF1", nb_file=3, cache_dir=str(tmp_path))
     assert len(sigs) == 3 and sr == 16000
     # force the npz disk-cache branch (not the in-process cache)
     store_mod._SPEAKER_CACHE.clear()
-    sigs2, _ = load_speaker("/root/reference/data", "SF1", nb_file=3, cache_dir=str(tmp_path))
+    sigs2, _ = load_speaker(corpus_data, "SF1", nb_file=3, cache_dir=str(tmp_path))
     for a, b in zip(sigs, sigs2):
         np.testing.assert_array_equal(a, b)
     # in-process cache: same objects back without re-decode
-    sigs3, _ = load_speaker("/root/reference/data", "SF1", nb_file=3, cache_dir=str(tmp_path))
+    sigs3, _ = load_speaker(corpus_data, "SF1", nb_file=3, cache_dir=str(tmp_path))
     assert sigs3[0] is sigs2[0]
 
 

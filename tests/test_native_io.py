@@ -6,14 +6,10 @@ import pytest
 
 from exemplars_vc_tpu.io import native, read_wav
 
-DATA = "/root/reference/data/SF1"
-
-
-@pytest.mark.skipif(not os.path.isdir(DATA), reason="no reference data")
-def test_native_matches_python_reader():
+def test_native_matches_python_reader(corpus_data):
     if not native.available():
         pytest.skip("native loader not built and no toolchain")
-    paths = sorted(glob.glob(os.path.join(DATA, "*.wav")))[:4]
+    paths = sorted(glob.glob(os.path.join(corpus_data, "SF1", "*.wav")))[:4]
     sigs, sr = native.read_wavs(paths)
     assert sr == 16000
     for p, s in zip(paths, sigs):

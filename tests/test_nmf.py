@@ -169,10 +169,9 @@ def test_nnls_close_to_scipy():
 
 
 def test_lane_padding_is_inert():
-    """The internal feature-axis lane padding (D → multiple of 128) must not
-    change the solve. Oracle: the plain MU recurrence in float64 numpy on the
-    UNPADDED problem, from the same H0 (whose average must use the true D —
-    padding before the mean would dilute the init)."""
+    """An unaligned feature width (D = 25) solves exactly. Oracle: the plain
+    MU recurrence in float64 numpy from the same H0, whose average is over
+    the true D."""
     X, A = _problem(F=24, K=48, D=25, seed=4, dtype=np.float32)
     K = A.shape[0]
     H = np.full((X.shape[0], K), np.sqrt(X.mean() / K), dtype=np.float64)

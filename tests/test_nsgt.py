@@ -1,10 +1,9 @@
 """NSGT (matrix-form nonstationary Gabor / invertible CQT) and the long-signal
-complex matmul FFT behind it.
+complex FFT behind it.
 
 Covers the capability of the reference's vendored pyfasst nsgt package
 (dependencies/pyfasst-master/pyfasst/tftransforms/nsgt/): window construction
 with canonical duals, forward/inverse transform, perfect reconstruction.
-Both the native-FFT (CPU) path and the forced matmul (TPU) path are tested.
 """
 
 import jax.numpy as jnp
@@ -15,16 +14,10 @@ from exemplars_vc_tpu.dsp import fft as F
 from exemplars_vc_tpu.dsp.nsgt import insgt, nsgt, nsgt_plan
 
 
-def _force_matmul(monkeypatch):
-    monkeypatch.setattr(F, "_use_native", lambda: False)
-
-
 # ---------------------------------------------------------------- complex FFT
 
 @pytest.mark.parametrize("n", [60, 128, 300, 2048, 3000, 4352])
-def test_fft_matches_numpy(monkeypatch, n):
-    # 3000 and 4352 exceed the direct-matmul cap → Cooley-Tukey split path
-    _force_matmul(monkeypatch)
+def test_fft_matches_numpy(n):
     rng = np.random.default_rng(n)
     x = (rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))).astype(np.complex64)
     got = np.asarray(F.fft(jnp.asarray(x)))
@@ -34,8 +27,7 @@ def test_fft_matches_numpy(monkeypatch, n):
     np.testing.assert_allclose(got.imag, ref.imag, atol=5e-4 * scale)
 
 
-def test_fft_real_input_and_prime_length(monkeypatch):
-    _force_matmul(monkeypatch)
+def test_fft_real_input_and_prime_length():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 127)).astype(np.float32)  # prime → direct DFT
     got = np.asarray(F.fft(jnp.asarray(x)))
@@ -43,8 +35,7 @@ def test_fft_real_input_and_prime_length(monkeypatch):
     np.testing.assert_allclose(got, ref, atol=3e-4 * np.abs(ref).max())
 
 
-def test_ifft_roundtrip(monkeypatch):
-    _force_matmul(monkeypatch)
+def test_ifft_roundtrip():
     rng = np.random.default_rng(1)
     x = (rng.standard_normal((2, 3000)) + 1j * rng.standard_normal((2, 3000))).astype(np.complex64)
     back = np.asarray(F.ifft(F.fft(jnp.asarray(x))))
@@ -78,8 +69,7 @@ def test_perfect_reconstruction():
     np.testing.assert_allclose(back, x, atol=5e-4 * np.abs(x).max())
 
 
-def test_perfect_reconstruction_batched_matmul_path(monkeypatch):
-    _force_matmul(monkeypatch)
+def test_perfect_reconstruction_batched_matmul_path():
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 2800)).astype(np.float32)
     c = nsgt(jnp.asarray(x), sr=16000, fmin=120.0, bins_per_octave=8)

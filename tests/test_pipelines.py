@@ -68,7 +68,7 @@ def test_convert_utterance_stft(cfg, store, tmp_path):
     assert (Y >= -1e-5).all() and np.isfinite(Y).all()
     # conversion quality guard: DTW-aligned MCD vs the true target utterance.
     # Gated BOTH absolutely (≤4.5 dB) and against the committed snapshot
-    # (golden + 0.3 dB, VERDICT r1 item 4) so perf work can't silently
+    # (golden + 0.3 dB) so perf work can't silently
     # degrade output.
     assert res.mcd_vs_reference is not None
     gold = np.load(os.path.join(os.path.dirname(__file__), "goldens",
@@ -87,7 +87,7 @@ def test_convert_kl_context_improves_mcd(cfg, store, tmp_path):
     """Beyond-reference quality settings: KL beta-loss + multi-frame
     exemplars (nmf.context_frames) must measurably beat the reference's
     frobenius/single-frame settings on the same data (measured ≈ −1.0 to
-    −2.5 dB across the bundled utterances; BENCHMARKS.md)."""
+    −2.5 dB across the bundled utterances)."""
     from dataclasses import replace
 
     src = os.path.join(DATA, "SF1", "100001.wav")
@@ -247,7 +247,7 @@ def test_serve_converter_reuses_dictionaries(cfg, store, tmp_path):
     assert r1.nmf_iters > 0 and r2.nmf_iters > 0
 
 
-@pytest.mark.parametrize("solver", ["cd", "qr", "mu_pallas"])
+@pytest.mark.parametrize("solver", ["cd", "qr", "mu_sharded"])
 def test_convert_solver_variants(store, tmp_path, solver):
     cfg_s = load_config(overrides=[
         "data.tar=TF1", "misc.nb_file=2", f"nmf.solver={solver}",
@@ -376,7 +376,7 @@ def test_normalize_exemplars_unnormalized_basis(cfg):
     the UNNORMALIZED basis (H'·(A/s) == (H'/s)·A), so reconstruction H·A
     approximates X as well as the plain solve and zero padding rows keep
     zero activations (held-out quality impact measured +0.07 dB — opt-in,
-    BENCHMARKS §held-out quality)."""
+    measured on the real held-out pair)."""
     from dataclasses import replace
 
     from exemplars_vc_tpu.pipelines.convert import _solve_activations

@@ -1,10 +1,10 @@
-"""Separation platform-robustness guards (VERDICT r4 item 1).
+"""Separation platform-robustness guards.
 
 The SIMM-family fits minimize the IS divergence, which is chaotically
 sensitive to near-silent spectrogram bins; float32 DEVICE STFTs differ
-across platforms by ~1e-9 of the mean power exactly there, which drove the
-TPU lead/accompaniment energy split to 1.8% vs 68% on CPU from identical
-audio. The fix: the model-input spectrogram is computed HOST-side in
+across platforms by ~1e-9 of the mean power exactly there, which drove an
+accelerator's lead/accompaniment energy split to 1.8% vs 68% on CPU from
+identical audio. The fix: the model-input spectrogram is computed HOST-side in
 float64 (``separate/glue.py:host_stereo_powers`` / ``host_mean_power`` /
 ``host_stft_stack``) — as the reference's pyfasst does
 (``dependencies/pyfasst-master/pyfasst/SeparateLeadStereo/
@@ -15,8 +15,8 @@ These tests pin (a) the host transforms against the device ``dsp.stft``
 semantics, and (b) the end-to-end separation operating point on the bench
 mixture, so a revert to device-side spectrograms (or a schedule change
 that shifts the converged split) fails CI. The cross-PLATFORM certificate
-itself is ``bench_separate.py --compare`` TPU-vs-CPU, recorded in
-``artifacts/separate_tpu.json`` (lead_energy_share equal on both).
+itself is ``bench_separate.py --compare`` device-vs-CPU (lead_energy_share
+equal on both).
 """
 
 import numpy as np
@@ -69,8 +69,8 @@ class TestHostTransforms:
 
 class TestOperatingPoint:
     def test_lead_energy_share_pinned(self):
-        """The bench scenario's converged energy split (also the TPU-vs-CPU
-        parity quantity; 0.6757 on both platforms, true share 0.647)."""
+        """The bench scenario's converged energy split (also the device-vs-CPU
+        parity quantity; true share 0.647)."""
         import jax
 
         x, true_lead, true_acc = _mixture()

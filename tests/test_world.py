@@ -101,7 +101,7 @@ def test_d4c_voiced_lower_than_unvoiced():
 
 
 def test_synthesis_analyzer_consistent_envelope():
-    """Quantitative envelope round trip (VERDICT r1 item 7): synthesizing
+    """Quantitative envelope round trip: synthesizing
     from known steady (f0, sp, ap) and re-analyzing must return the same
     envelope — mid-band bias < 1 dB, rms < 2 dB (measured ≈0.2 / 0.6 dB;
     the harmonic gain is calibrated to THIS framework's CheapTrick, see

@@ -2,7 +2,8 @@
 """Composed source-F0-filter EM: platform sensitivity under IDENTICAL inputs.
 
 The stereo-SIMM fix proved that solver platform-exact; the composed path
-still shows a lead-share spread (0.684 TPU vs 0.744 CPU). This isolates
+still showed a lead-share spread between an accelerator and the CPU
+(0.684 vs 0.744). This isolates
 the EM: fit_multichannel_sf on bit-identical inputs (host-f64 STFT of the
 bench mixture, PRNG-keyed inits) on the current backend, dumping the NLL
 trajectory and final-factor summaries for cross-platform diffing.

@@ -4,14 +4,13 @@
 Reproduces ``bench_separate.py``'s ``stereo_simm`` scenario (warmup 10 it +
 round-1 15 it + melody decode + round-2 15 it) with the scan's diagnostics
 channel enabled, and dumps every per-iteration scalar to an npz. Running it
-once under ``JAX_PLATFORMS=cpu`` and once on the TPU, then diffing the two
-npz files, pinpoints the FIRST update where the platforms diverge (VERDICT
-r4 item 1: lead share 1.8% TPU vs 68% CPU).
+once under ``JAX_PLATFORMS=cpu`` and once on the GPU, then diffing the two
+npz files, pinpoints the FIRST update where the platforms diverge.
 
 Usage:
-  python tools/debug_simm.py --platform cpu --out /tmp/simm_cpu.npz
-  python tools/debug_simm.py --out /tmp/simm_tpu.npz          # TPU
-  python tools/debug_simm.py --compare /tmp/simm_tpu.npz /tmp/simm_cpu.npz
+  python tools/debug_simm.py --platform cpu --out simm_cpu.npz
+  python tools/debug_simm.py --out simm_gpu.npz          # GPU
+  python tools/debug_simm.py --compare simm_gpu.npz simm_cpu.npz
 """
 
 from __future__ import annotations

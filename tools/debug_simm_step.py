@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""One-iteration intermediate dump: TPU f32 vs numpy float64.
+"""One-iteration intermediate dump: device f32 vs numpy float64.
 
 Computes every intermediate of the FIRST stereo-SIMM warmup iteration
 (HF0 → HPHI → alpha updates; accompaniment frozen) on the active JAX
 backend as one jitted program, fetches each, and compares against a
 float64 numpy recomputation of the same quantities from the same inits.
-The first intermediate with large relative error is the culprit op family
-(VERDICT r4 item 1 bisect).
+The first intermediate with large relative error is the culprit op family.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Isolate the serving NMF solve at production K (VERDICT r4 item 3).
+"""Isolate the serving NMF solve at production K.
 
 Measures the fixed-dictionary MU solve ALONE at K=115,200: one-utterance
 F vs stacked 4-utterance F, f32 vs bf16 work dtype, fenced timings —
 to decide whether batch-of-4 serving parity (0.99×) is a dispatch bug or
-the compute roofline (F≳120 rows already saturate the MXU at this K,
+the compute roofline (enough F rows saturate the matmul units at this K,
 making the solve FLOP-bound, so stacking frames scales time linearly).
 """
 

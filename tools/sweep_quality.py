@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""Joint quality-lever sweep over LOO folds (VERDICT r4 item 5).
+"""Joint quality-lever sweep over LOO folds.
 
 The round-3/4 levers were measured one-at-a-time; this sweeps COMPOSED
 configurations of the individually-winning levers (KL β-loss base + VTLP
 warp density × dictionary densify × post-solve refinements) over a chosen
 set of leave-one-out folds, reusing the LOO fold machinery. Run the sweep
 on the CPU backend (2 folds) to pick a winner, then validate the winner on
-all 8 folds on the TPU.
+all 8 folds on the GPU.
 
 Usage:
   python tools/sweep_quality.py --platform cpu --folds 100001,100002
